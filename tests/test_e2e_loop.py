@@ -15,7 +15,7 @@ One 390-frame lap of the urban-block raycast world driven through
   is no worse than the VIO path.
 
 Runs on the deployed deferred path (sync_depth=2) — the same cross-frame
-overlap configuration the TPU benchmark uses — so the async drift
+overlap configuration the benchmark uses — so the async drift
 bookkeeping and the deferred ScanContext gate are exercised end to end.
 """
 import numpy as np

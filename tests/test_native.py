@@ -96,7 +96,7 @@ def test_load_pgm(tmp_path):
 
 # ---------------------------------------------------------------------------
 # Sensor transport (runtime/transport.py): the ring bus as the deployment
-# data path — reference launch/run_fusion.launch topic wiring, TPU-native.
+# data path — reference launch/run_fusion.launch topic wiring.
 # ---------------------------------------------------------------------------
 
 def _example_events():

@@ -1,175 +1,146 @@
-"""Pallas kNN kernel correctness (interpret mode on CPU; compiled on TPU)."""
+"""Fused GPU kNN kernel: interpret-mode correctness on the CPU against the
+XLA form (ops/knn.py) and a float64 NumPy brute force, the occupancy rule,
+and the backend dispatch. The compiled kernel is checked on the card by
+chip_smoke.py (tests/test_chip.py)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from vil_fusion_tpu.ops import knn as knn_xla
-from vil_fusion_tpu.ops.pallas.knn_pallas import knn_pallas, knn_pallas_sparse
+from vil_fusion_tpu.ops.pallas import knn_pallas
 
 
-def test_pallas_knn_matches_xla():
-    rng = np.random.default_rng(0)
-    q = jnp.asarray(rng.uniform(-20, 20, (300, 3)), jnp.float32)
-    db = jnp.asarray(rng.uniform(-20, 20, (3000, 3)), jnp.float32)
-    valid = jnp.asarray(rng.random(3000) > 0.1)
-    d_ref, i_ref = knn_xla.knn(q, db, valid, k=5)
-    d_pl, i_pl = knn_pallas(q, db, valid, k=5, q_tile=128, db_tile=512,
-                            interpret=True)
-    np.testing.assert_allclose(np.asarray(d_pl), np.asarray(d_ref),
-                               rtol=1e-4, atol=1e-3)
-    # indices resolve to the same distances
-    got = ((np.asarray(q)[:, None, :] - np.asarray(db)[np.asarray(i_pl)]) ** 2).sum(-1)
-    ref = np.where(np.isfinite(d_ref), d_ref, 0.0)
-    got = np.where(np.isfinite(np.asarray(d_pl)), got, 0.0)
-    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-3)
+def _brute(q, db, valid, k):
+    d = ((np.asarray(q, np.float64)[:, None, :]
+          - np.asarray(db, np.float64)[None]) ** 2).sum(-1)
+    d = np.where(np.asarray(valid)[None], d, np.inf)
+    i = np.argsort(d, axis=1, kind="stable")[:, :k]
+    return np.take_along_axis(d, i, 1), i
 
 
-def test_pallas_knn_sparse_exact_within_radius():
-    """Morton/AABB block-skipping kNN must agree exactly with brute force for
-    every query whose k-th neighbour is within the radius (the LOAM
-    correspondence gate: d2[:, -1] < max_corr_dist^2)."""
-    rng = np.random.default_rng(3)
-    radius = 3.0
-    # clustered points (like a lidar map) so skipping actually kicks in
-    centers = rng.uniform(-40, 40, (20, 3))
-    db_np = (centers[rng.integers(0, 20, 3000)]
-             + rng.normal(0, 2.0, (3000, 3))).astype(np.float32)
-    q_np = (centers[rng.integers(0, 20, 300)]
-            + rng.normal(0, 2.0, (300, 3))).astype(np.float32)
-    q = jnp.asarray(q_np)
-    db = jnp.asarray(db_np)
-    valid = jnp.asarray(rng.random(3000) > 0.1)
-    d_ref, i_ref = knn_xla.knn(q, db, valid, k=5)
-    d_sp, i_sp = knn_pallas_sparse(q, db, valid, k=5, radius=radius,
-                                   q_tile=64, db_tile=256, cell=2.0,
-                                   interpret=True)
-    d_ref = np.asarray(d_ref)
-    d_sp = np.asarray(d_sp)
-    gate_ref = d_ref[:, -1] < radius**2
-    gate_sp = d_sp[:, -1] < radius**2
-    np.testing.assert_array_equal(gate_ref, gate_sp)
-    g = gate_ref
-    assert g.sum() > 50  # the scenario actually exercises the gated path
-    np.testing.assert_allclose(d_sp[g], d_ref[g], rtol=1e-4, atol=1e-3)
-    np.testing.assert_array_equal(np.asarray(i_sp)[g], np.asarray(i_ref)[g])
+def _check(d, i, q, db, valid, k, atol):
+    d, i = np.asarray(d), np.asarray(i)
+    d_ref, _ = _brute(q, db, valid, k)
+    np.testing.assert_array_equal(np.isfinite(d), np.isfinite(d_ref))
+    fin = np.isfinite(d_ref)
+    np.testing.assert_allclose(d[fin], d_ref[fin], rtol=1e-5, atol=atol)
+    # returned indices point at points with the returned distances
+    got = ((np.asarray(q, np.float64)[:, None, :]
+            - np.asarray(db, np.float64)[i]) ** 2).sum(-1)
+    np.testing.assert_allclose(got[fin], d_ref[fin], rtol=1e-5, atol=atol)
+    assert (i[~fin] == 0).all()
 
 
-def test_pallas_knn_sparse_presorted_flags():
-    """q_sorted/db_sorted skip the internal sort; with the caller applying
-    morton_sort itself the results must be identical to the self-sorting
-    path (modulo the caller's own permutation)."""
-    from vil_fusion_tpu.ops.pallas.knn_pallas import morton_sort
-
-    rng = np.random.default_rng(9)
-    q = jnp.asarray(rng.uniform(-30, 30, (200, 3)), jnp.float32)
-    db = jnp.asarray(rng.uniform(-30, 30, (2000, 3)), jnp.float32)
-    valid = jnp.asarray(rng.random(2000) > 0.2)
-    d_ref, i_ref = knn_pallas_sparse(q, db, valid, k=4, radius=5.0,
-                                     q_tile=64, db_tile=256, interpret=True)
-    qp = morton_sort(q)
-    dp = morton_sort(db, valid)
-    d_s, i_s = knn_pallas_sparse(q[qp], db[dp], valid[dp], k=4, radius=5.0,
-                                 q_tile=64, db_tile=256,
-                                 q_sorted=True, db_sorted=True, interpret=True)
-    # d_s rows are in sorted-query order; i_s indexes the sorted db
-    inv = np.argsort(np.asarray(qp))
-    d_back = np.asarray(d_s)[inv]
-    i_back = np.asarray(dp)[np.asarray(i_s)][inv]
-    gate = np.asarray(d_ref)[:, -1] < 25.0
-    np.testing.assert_allclose(d_back[gate], np.asarray(d_ref)[gate],
-                               rtol=1e-4, atol=1e-3)
-    np.testing.assert_array_equal(i_back[gate], np.asarray(i_ref)[gate])
+@pytest.mark.parametrize("k", [1, 3, 5])
+@pytest.mark.parametrize("nq,nd", [(37, 700), (300, 3000)])
+def test_fused_knn_matches_brute_force_and_xla(k, nq, nd):
+    """Sizes off the (16, 512) block grid; ~10% invalid database slots."""
+    rng = np.random.default_rng(k * 1000 + nq)
+    q = rng.uniform(-20, 20, (nq, 3)).astype(np.float32)
+    db = rng.uniform(-20, 20, (nd, 3)).astype(np.float32)
+    valid = rng.random(nd) > 0.1
+    d, i = knn_pallas.knn_fused(q, db, valid, k=k, interpret=True)
+    _check(d, i, q, db, valid, k, atol=1e-4)
+    d_x, _ = knn_xla.knn(jnp.asarray(q), jnp.asarray(db), jnp.asarray(valid),
+                         k=k)
+    np.testing.assert_allclose(np.asarray(d), np.asarray(d_x), rtol=1e-4,
+                               atol=1e-3)
 
 
-def test_pallas_knn_sparse_all_invalid_db():
-    q = jnp.zeros((70, 3), jnp.float32)
-    db = jnp.ones((500, 3), jnp.float32)
-    d, i = knn_pallas_sparse(q, db, jnp.zeros(500, bool), k=3, radius=2.0,
-                             q_tile=64, db_tile=128, interpret=True)
+@pytest.mark.parametrize("n_split", [1, 4])
+def test_fused_knn_split_merge(n_split):
+    """The database split across blocks (occupancy for few-query shapes)
+    merges to the same exact answer as one split."""
+    rng = np.random.default_rng(7)
+    q = rng.uniform(-5, 5, (20, 3)).astype(np.float32)
+    db = rng.uniform(-5, 5, (2000, 3)).astype(np.float32)
+    valid = rng.random(2000) > 0.3
+    d, i = knn_pallas.knn_fused(q, db, valid, k=5, n_split=n_split,
+                                interpret=True)
+    _check(d, i, q, db, valid, 5, atol=1e-5)
+
+
+def test_fused_knn_few_valid():
+    q = np.zeros((8, 3), np.float32)
+    db = np.ones((600, 3), np.float32)
+    valid = np.zeros(600, bool)
+    valid[[5, 17]] = True
+    d, i = knn_pallas.knn_fused(q, db, valid, k=4, interpret=True)
+    d, i = np.asarray(d), np.asarray(i)
+    assert (np.isfinite(d).sum(1) == 2).all()
+    assert set(i[0, :2].tolist()) == {5, 17}
+    assert (i[:, 2:] == 0).all()
+
+
+def test_fused_knn_all_invalid_db():
+    q = np.zeros((70, 3), np.float32)
+    db = np.ones((500, 3), np.float32)
+    d, i = knn_pallas.knn_fused(q, db, np.zeros(500, bool), k=3,
+                                interpret=True)
     assert not np.isfinite(np.asarray(d)).any()
+    assert (np.asarray(i) == 0).all()
 
 
-def test_pallas_knn_few_valid():
-    q = jnp.zeros((8, 3), jnp.float32)
-    db = jnp.ones((600, 3), jnp.float32)
-    valid = jnp.zeros(600, bool).at[5].set(True).at[17].set(True)
-    d, i = knn_pallas(q, db, valid, k=4, q_tile=8, db_tile=256, interpret=True)
-    finite = np.isfinite(np.asarray(d))
-    assert (finite.sum(1) == 2).all()
-    assert set(np.asarray(i)[0, :2].tolist()) == {5, 17}
-
-
-def test_pallas_knn_packed_merge_matches():
-    """Packed-key merge: indices must match the exact path wherever the
-    k-th distance is unambiguous at the 2^-12 quantization; distances agree
-    to the quantization tolerance."""
-    rng = np.random.default_rng(11)
-    q = jnp.asarray(rng.uniform(-20, 20, (256, 3)), jnp.float32)
-    db = jnp.asarray(rng.uniform(-20, 20, (2000, 3)), jnp.float32)
-    valid = jnp.asarray(rng.random(2000) > 0.1)
-    d_ref, i_ref = knn_pallas(q, db, valid, k=5, q_tile=128, db_tile=512,
-                              interpret=True)
-    d_pk, i_pk = knn_pallas(q, db, valid, k=5, q_tile=128, db_tile=512,
-                            interpret=True, packed=True)
-    d_ref = np.asarray(d_ref)
-    d_pk = np.asarray(d_pk)
-    np.testing.assert_allclose(d_pk, d_ref, rtol=3e-4, atol=1e-5)
-    # where the margin between consecutive neighbours exceeds quantization,
-    # the selected indices are identical
-    margin_ok = np.all(np.diff(d_ref, axis=1) > d_ref[:, -1:] * 1e-3, axis=1)
-    assert margin_ok.sum() > 150
-    np.testing.assert_array_equal(np.asarray(i_pk)[margin_ok],
-                                  np.asarray(i_ref)[margin_ok])
-
-
-def test_pallas_knn_sparse_packed_merge_matches():
-    rng = np.random.default_rng(13)
-    centers = rng.uniform(-40, 40, (15, 3))
-    db = jnp.asarray((centers[rng.integers(0, 15, 2000)]
-                      + rng.normal(0, 2.0, (2000, 3))).astype(np.float32))
-    q = jnp.asarray((centers[rng.integers(0, 15, 256)]
-                     + rng.normal(0, 2.0, (256, 3))).astype(np.float32))
-    valid = jnp.asarray(rng.random(2000) > 0.1)
-    d_ref, i_ref = knn_pallas_sparse(q, db, valid, k=5, radius=3.0,
-                                     q_tile=64, db_tile=256, interpret=True)
-    d_pk, i_pk = knn_pallas_sparse(q, db, valid, k=5, radius=3.0,
-                                   q_tile=64, db_tile=256, interpret=True,
-                                   packed=True)
-    d_ref = np.asarray(d_ref); d_pk = np.asarray(d_pk)
-    gate = d_ref[:, -1] < 9.0
-    assert gate.sum() > 50
-    np.testing.assert_allclose(d_pk[gate], d_ref[gate], rtol=3e-4, atol=1e-5)
-    margin_ok = gate & np.all(
-        np.diff(d_ref, axis=1) > np.maximum(d_ref[:, -1:], 1.0) * 1e-3, axis=1)
-    assert margin_ok.sum() > 30
-    np.testing.assert_array_equal(np.asarray(i_pk)[margin_ok],
-                                  np.asarray(i_ref)[margin_ok])
-
-
-def test_grouped_merge_kernel_bounded_approximation():
-    """The grouped two-pass merge (lidar odometry's dispatch, approx=True)
-    must match the exact kNN on >=99% of rows and never return a 5th
-    neighbor farther than 1.5x the true 5th-NN distance (its documented
-    bound: overflow beyond top-2-per-128-column-group falls back to the
-    next-best other-group candidate)."""
-    import numpy as np
-    import jax.numpy as jnp
-    from vil_fusion_tpu.ops.pallas import knn_pallas as kp
-    from vil_fusion_tpu.ops import knn as knn_xla
-
+def test_fused_knn_unit_sphere_near_zero():
+    """Depth association: rays and cloud on the unit sphere, neighbour
+    distances ~1e-6..1e-4; the difference-square form keeps them to 1e-9."""
     rng = np.random.default_rng(3)
-    q = jnp.asarray(rng.uniform(-50, 50, (512, 3)), jnp.float32)
-    db = jnp.asarray(rng.uniform(-50, 50, (8192, 3)), jnp.float32)
-    dbv = jnp.asarray(rng.random(8192) > 0.1)
-    d_g, i_g = kp.knn_pallas(q, db, dbv, k=5, grouped=True, mxu=True,
-                             interpret=True)
-    d_r, _ = knn_xla.knn(q, db, dbv, k=5)
-    d_g = np.sort(np.asarray(d_g), 1)
-    d_r = np.sort(np.asarray(d_r), 1)
-    exact_rows = np.isclose(d_g, d_r, rtol=1e-3, atol=1e-2).all(1).mean()
-    assert exact_rows > 0.99, exact_rows
-    ratio = (d_g[:, -1] / np.maximum(d_r[:, -1], 1e-9)).max()
-    assert ratio < 1.5, ratio
-    # returned indices point at real points with the returned distances
-    got = ((np.asarray(q)[:, None, :] - np.asarray(db)[np.asarray(i_g)]) ** 2).sum(-1)
-    np.testing.assert_allclose(np.sort(got, 1), d_g, rtol=2e-3, atol=2e-2)
+    cloud = rng.normal(size=(5000, 3)) * [1.0, 0.3, 0.1] + [0, 0, 1]
+    cloud /= np.linalg.norm(cloud, axis=1, keepdims=True)
+    rays = cloud[rng.choice(5000, 50, replace=False)] + rng.normal(
+        0, 1e-3, (50, 3))
+    rays /= np.linalg.norm(rays, axis=1, keepdims=True)
+    cloud, rays = cloud.astype(np.float32), rays.astype(np.float32)
+    valid = np.ones(5000, bool)
+    d, i = knn_pallas.knn_fused(rays, cloud, valid, k=3, interpret=True)
+    d_ref, _ = _brute(rays, cloud, valid, 3)
+    assert d_ref[:, 0].max() < 1e-4
+    np.testing.assert_allclose(np.asarray(d), d_ref, rtol=0, atol=1e-9)
+
+
+def test_fused_knn_under_vmap():
+    """Batched (sequence-axis) odometry vmaps the dispatch."""
+    rng = np.random.default_rng(5)
+    q = rng.uniform(-5, 5, (2, 40, 3)).astype(np.float32)
+    db = rng.uniform(-5, 5, (2, 500, 3)).astype(np.float32)
+    valid = rng.random((2, 500)) > 0.2
+    d, i = jax.vmap(lambda a, b, c: knn_pallas.knn_fused(
+        a, b, c, k=3, interpret=True))(q, db, valid)
+    for s in range(2):
+        _check(d[s], i[s], q[s], db[s], valid[s], 3, atol=1e-5)
+
+
+def test_split_rule_fills_the_card():
+    """Main-path shapes: surf 8192x32768 needs no split, the 2048-query edge
+    pass and the ~200-ray depth pass split the database."""
+    bq, bd = knn_pallas._BQ, knn_pallas._BD
+    splits = {name: knn_pallas._n_split(-(-nq // bq), -(-nd // bd))
+              for name, (nq, nd) in dict(surf=(8192, 32768),
+                                         edge=(2048, 16384),
+                                         depth=(200, 115200)).items()}
+    assert splits["surf"] == 1
+    for name, (nq, nd) in dict(edge=(2048, 16384), depth=(200, 115200)).items():
+        blocks = -(-nq // bq) * splits[name]
+        assert blocks >= knn_pallas._TARGET_BLOCKS, (name, splits)
+        assert -(-nd // bd) // splits[name] >= 4, (name, splits)
+
+
+@pytest.mark.parametrize("backend", ["gpu", "cpu"])
+def test_dispatch_by_backend(monkeypatch, backend):
+    """One decision: the compiled kernel (never interpret mode) on the GPU
+    backend, the XLA form elsewhere."""
+    calls = []
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    monkeypatch.setattr(knn_pallas, "knn_fused",
+                        lambda *a, **kw: calls.append(("fused", kw)) or "f")
+    monkeypatch.setattr(knn_pallas.knn_xla, "knn",
+                        lambda *a, **kw: calls.append(("xla", kw)) or "x")
+    q = np.zeros((4, 3), np.float32)
+    out = knn_pallas.knn(q, q, np.ones(4, bool), k=3)
+    if backend == "gpu":
+        assert out == "f" and calls[0][0] == "fused"
+        assert not calls[0][1].get("interpret", False)
+    else:
+        assert out == "x" and calls[0][0] == "xla"
+    assert calls[0][1]["k"] == 3 and len(calls) == 1

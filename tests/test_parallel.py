@@ -48,7 +48,7 @@ def test_sharded_ba_step_matches_single_device(mesh):
 
 
 def test_sharded_full_lm_loop_matches_single_device(mesh):
-    """VERDICT item: the FULL annealed LM loop (accept/reject, GNC schedule,
+    """The FULL annealed LM loop (accept/reject, GNC schedule,
     re-anchoring) sharded over the mesh must match ba.optimize."""
     import __graft_entry__ as ge
     from vil_fusion_tpu.models import ba
@@ -176,7 +176,7 @@ def test_pipeline_sharded_ba_deployed_e2e(mesh):
     """Multi-chip as a DEPLOYED mode, not only a solver capability: the full
     VILFusionPipeline driven for ~30 steady frames with
     ba_overrides={"sharded": True} on the 8-device mesh must reproduce the
-    unsharded pipeline's trajectory (VERDICT r3 item 8)."""
+    unsharded pipeline's trajectory."""
     import sys, os
     sys.path.insert(0, os.path.dirname(__file__))
     from test_pipeline import make_rig, R_BC, FX, FY, CX, CY, H, W

@@ -373,6 +373,6 @@ def test_scan_quantization_equivalence():
     # 2.5 cm: the 2.5 mm quantization perturbs which map candidates the
     # warm-gated kNN reuse caches, so the two runs settle on nearby but
     # distinct registration fixed points (same order as the measured
-    # reuse-vs-exact delta, tools/ab_knn.py: 2.1 cm mean at HDL-64 scale)
+    # candidate-reuse-vs-exact-requery delta: 2.1 cm mean at HDL-64 scale)
     assert np.abs(lq - l0).max() < 0.025, np.abs(lq - l0).max()
     assert np.abs(vq - v0).max() < 0.10, np.abs(vq - v0).max()

@@ -1,6 +1,6 @@
 """f32-conditioning adversarial test (SURVEY §7 "precision" hard part).
 
-Ceres runs the reference's BA in f64; on TPU we solve in f32 with symmetric
+Ceres runs the reference's BA in f64; here BA solves in f32 with symmetric
 Jacobi preconditioning + one round of iterative refinement (ba.schur_solve).
 This test pits that claim against a deliberately ill-conditioned window —
 motion along the optical axis (parallax-poor) with a 100:1 landmark depth
@@ -46,31 +46,31 @@ def _ill_conditioned_problem(dtype):
     return state, feats, pre, lidar, prior
 
 
-def test_f32_step_matches_f64_golden_on_ill_conditioned_window():
+def f32_vs_f64_step() -> dict:
+    """f32 and f64 Schur steps and LM costs on the ill-conditioned window:
+    direction cosine, norm ratio, median relative depth-update error, and
+    both final costs (also run on the GPU by chip_smoke.py)."""
     with jax.enable_x64(True):
         cfg = ba.BAConfig(max_iters=8)
         lam = 1e-4
 
+        @jax.jit
+        def step(state, feats, pre, lidar, prior, lam):
+            sys_ = ba.build_system(state, feats, pre, lidar, prior, cfg, 1.0)
+            return ba.schur_solve(sys_, lam, cfg)
+
         deltas = {}
         for dtype in (jnp.float32, jnp.float64):
             state, feats, pre, lidar, prior = _ill_conditioned_problem(dtype)
-            sys_ = ba.build_system(state, feats, pre, lidar, prior, cfg, 1.0)
-            d, dd = ba.schur_solve(sys_, jnp.asarray(lam, dtype), cfg)
+            d, dd = step(state, feats, pre, lidar, prior,
+                         jnp.asarray(lam, dtype))
             deltas[str(jnp.dtype(dtype))] = (np.asarray(d, np.float64),
                                              np.asarray(dd, np.float64))
         d32, dd32 = deltas["float32"]
         d64, dd64 = deltas["float64"]
-        # vision blocks scale with FOCAL^2 ~ 2e5: a raw f32 normal-equation
-        # solve loses the direction here; the preconditioned one must not
-        cos = d32 @ d64 / (np.linalg.norm(d32) * np.linalg.norm(d64))
-        assert cos > 0.999, cos
-        ratio = np.linalg.norm(d32) / np.linalg.norm(d64)
-        assert 0.95 < ratio < 1.05, ratio
         # depth back-substitution: compare where depths are meaningfully moved
         big = np.abs(dd64) > 1e-6
-        assert big.any()
         rel = np.abs(dd32[big] - dd64[big]) / np.maximum(np.abs(dd64[big]), 1e-9)
-        assert np.median(rel) < 0.05, np.median(rel)
 
         # full LM loop: f32 must reach the f64 cost basin
         costs = {}
@@ -78,4 +78,30 @@ def test_f32_step_matches_f64_golden_on_ill_conditioned_window():
             state, feats, pre, lidar, prior = _ill_conditioned_problem(dtype)
             _, _, cost = ba.optimize(state, feats, pre, lidar, prior, cfg)
             costs[str(jnp.dtype(dtype))] = float(cost)
-        assert costs["float32"] < costs["float64"] * 1.05 + 1e-6, costs
+    return dict(
+        cos=float(d32 @ d64 / (np.linalg.norm(d32) * np.linalg.norm(d64))),
+        ratio=float(np.linalg.norm(d32) / np.linalg.norm(d64)),
+        n_depths=int(big.sum()),
+        median_depth_rel=float(np.median(rel)) if big.any() else None,
+        cost_f32=costs["float32"], cost_f64=costs["float64"])
+
+
+def f32_vs_f64_failures(r: dict) -> list:
+    """Names of the bounds `r` (from f32_vs_f64_step) breaks."""
+    # vision blocks scale with FOCAL^2 ~ 2e5: a raw f32 normal-equation
+    # solve loses the direction here; the preconditioned one must not
+    bounds = {
+        "cos > 0.999": r["cos"] > 0.999,
+        "0.95 < ratio < 1.05": 0.95 < r["ratio"] < 1.05,
+        "depths moved": r["n_depths"] > 0,
+        "median depth rel < 0.05": r["n_depths"] > 0
+        and r["median_depth_rel"] < 0.05,
+        "f32 cost in the f64 basin":
+            r["cost_f32"] < r["cost_f64"] * 1.05 + 1e-6,
+    }
+    return [name for name, ok in bounds.items() if not ok]
+
+
+def test_f32_step_matches_f64_golden_on_ill_conditioned_window():
+    r = f32_vs_f64_step()
+    assert not f32_vs_f64_failures(r), r

@@ -218,8 +218,8 @@ def test_multi_sequence_edges_not_straddling():
 @pytest.mark.slow
 def test_place_recognition_kitti_scale_with_drift():
     """Mid-scale CI guard for the regime where r4's detector was inert
-    (ACCEPTANCE_r04: 0 visual loops at 1226x370 over 2 identical laps,
-    VERDICT r4 #2): full KITTI image width, 2 laps of an urban circuit,
+    (an acceptance run saw 0 visual loops at 1226x370 over 2 identical
+    laps): full KITTI image width, 2 laps of an urban circuit,
     keyframes every 2 m, and a VIO-like 1%/m drift applied to lap-2 poses
     AND landmarks (the estimator exports both in the same drifted frame).
     The 320x240 toy e2e is demonstrably not predictive of this regime.

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Per-frame estimator telemetry at acceptance scale: reproduce the periodic
-z_jump/bias divergence (ACCEPTANCE_r05: 8 restarts, all z_jump or
+z_jump/bias divergence (an acceptance run: 8 restarts, all z_jump or
 acc_bias_norm, every 13-23 s) with enough signal to name the mechanism.
 
     python tools/diag_estimator_scale.py --frames 280
@@ -28,9 +28,9 @@ def main():
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/jax_tpu"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from vil_fusion_tpu.utils.compile_cache import use_compile_cache
+
+    use_compile_cache()
     import jax.numpy as jnp
 
     from vil_fusion_tpu.runtime import sim

@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Offline diagnosis of the visual loop detector at acceptance scale.
 
-ACCEPTANCE_r04 recorded 0 visual loops over 2 identical laps while
-ScanContext found 64 (VERDICT r4 missing #2). This probe isolates the place-
+An acceptance run once recorded 0 visual loops over 2 identical laps while
+ScanContext found 64. This probe isolates the place-
 recognition chain from the estimator: keyframes are built from GROUND-TRUTH
 poses and raycast-true landmark depths on the same urban-block scene at full
 KITTI image scale (1226x370), 2 laps, keyframe every 2 m. Every lap-2 query
@@ -40,10 +40,9 @@ def main():
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ.get("JAX_COMPILATION_CACHE_DIR",
-                                     os.path.expanduser("~/.cache/jax_tpu")))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from vil_fusion_tpu.utils.compile_cache import use_compile_cache
+
+    use_compile_cache()
     import jax.numpy as jnp
 
     from vil_fusion_tpu.models import cameras as cam_mod

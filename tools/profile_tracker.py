@@ -10,9 +10,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir",
-                  __import__("os").path.expanduser("~/.cache/jax_tpu"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from vil_fusion_tpu.utils.compile_cache import use_compile_cache
+
+use_compile_cache()
 import jax.numpy as jnp
 import numpy as np
 

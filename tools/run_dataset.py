@@ -43,7 +43,7 @@ def main():
                     help="cross-frame stage overlap depth (0 = synchronous)")
     args = ap.parse_args()
 
-    from vil_fusion_tpu.runtime import datasets, tum, viz
+    from vil_fusion_tpu.runtime import datasets, tum
     from vil_fusion_tpu.runtime.config import load_rig
     from vil_fusion_tpu.runtime.pipeline import VILFusionPipeline
     from vil_fusion_tpu.utils.tracing import GLOBAL_TIMERS
@@ -69,7 +69,12 @@ def main():
 
     os.makedirs(args.out, exist_ok=True)
     pipe.outputs.write(args.out, pipe.fusion)
-    viz.render_pipeline_report(pipe, args.out)
+    try:
+        from vil_fusion_tpu.runtime import viz
+    except ImportError as e:  # matplotlib is optional
+        print(f"note: {e}; skipping the PNG report")
+    else:
+        viz.render_pipeline_report(pipe, args.out)
 
     report = {"frames": len(pipe.outputs.ts), "restarts": pipe.restarts,
               "restart_log": pipe.restart_log,

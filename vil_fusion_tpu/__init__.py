@@ -1,4 +1,4 @@
-"""vil_fusion_tpu — TPU-native visual-inertial-LiDAR SLAM framework.
+"""vil_fusion_tpu — visual-inertial-LiDAR SLAM framework in JAX.
 
 Top-level conveniences; see README.md and PARITY.md for the layout.
 """
@@ -9,14 +9,14 @@ import os as _os
 
 import jax as _jax
 
-# TPU f32 matmuls default to bf16-input MXU passes; the estimator's normal
-# equations, Schur complements and alignment solves (Ceres/GTSAM run f64 in
-# the reference) visibly diverge under that: the cold-start BA regression
-# converges to 0.012 m at float32 vs 0.125 m at the bf16 default on a v5e
-# (measured 2026-08-19). Every matmul in this framework is small (<=
-# window*15 ~ 150 dims), so the 3-pass float32 MXU mode costs nothing
-# measurable; set it globally rather than leaking precision= through every
-# einsum. Override with VIL_FUSION_MATMUL_PRECISION=(default|float32|highest).
+# f32 matmuls on the GPU may run in TF32, which keeps about 3 decimal
+# digits. The estimator's normal equations, Schur complements and alignment
+# solves (Ceres/GTSAM run f64 in the reference) and the expanded-form kNN
+# distances (|q|^2 + |d|^2 - 2 q.d) cannot afford that, so every matmul runs
+# in full float32. They are all small (<= window*15 ~ 150 dims), so the cost
+# is low. Set once here rather than leaking precision= through every einsum;
+# image convolutions opt out (ops/image.py). Override with
+# VIL_FUSION_MATMUL_PRECISION=(default|float32|highest).
 _prec = _os.environ.get("VIL_FUSION_MATMUL_PRECISION", "float32")
 if _prec != "default":
     _jax.config.update("jax_default_matmul_precision", _prec)

@@ -1,7 +1,7 @@
 """Sliding-window bundle adjustment: assembly, Schur complement, LM loop.
 
 Rebuild of the reference's `Estimator::optimization` (estimator.cpp:689-1050)
-and its Ceres DENSE_SCHUR/DOGLEG solve (:838-853), TPU-first:
+and its Ceres DENSE_SCHUR/DOGLEG solve (:838-853), accelerator-first:
 
   * Per-factor residuals + Jacobians are vmapped pure functions (jacfwd over
     tangent deltas traces to the reference's hand-written analytic Jacobians).
@@ -218,9 +218,9 @@ def _scatter_quadratic(H, b, r, J, ix):
 def accumulate_proj_quadratic(H, b, Hpd, Hd, bd, r, Jp, Jd, ix, f_idx):
     """Projection-factor accumulation via one-hot matmuls.
 
-    Thousands of 19x19 scatter-adds serialize on TPU; projecting each
+    Thousands of 19x19 scatter-adds serialize on an accelerator; projecting each
     factor's Jacobian into the full D-dim tangent with a one-hot selection
-    matrix turns the whole assembly into three MXU einsums (the same trick
+    matrix turns the whole assembly into three dense einsums (the same trick
     the pthreaded map-reduce in marginalization_factor.cpp:232-261 is NOT).
     """
     N = r.shape[0]
@@ -310,7 +310,7 @@ def schur_solve(sys: System, lam: jnp.ndarray, cfg: BAConfig):
     equations loses the descent direction entirely. We symmetrically Jacobi-
     precondition (condition number drops to the geometry's intrinsic one) and
     apply one step of iterative refinement — equivalent in practice to the
-    f64 solve Ceres uses, at f32 TPU speed.
+    f64 solve Ceres uses, at f32 speed.
     """
     dtype = sys.H.dtype
     d_ok = sys.Hd > 1e-8

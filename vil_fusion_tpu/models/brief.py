@@ -13,7 +13,7 @@ Rebuild of the reference's visual place-recognition primitives (C13/C14):
     the LSH words are derived from the descriptor bits themselves.
 
 Descriptors are packed into (n, 8) int32 lanes; Hamming distance is
-XOR + popcount on the VPU — one (N, M) matrix per matching call.
+XOR + popcount, elementwise — one (N, M) matrix per matching call.
 """
 from __future__ import annotations
 

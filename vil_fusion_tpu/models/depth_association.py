@@ -18,7 +18,7 @@ import functools
 import jax
 import jax.numpy as jnp
 
-from vil_fusion_tpu.ops.pallas import knn_pallas as knn_ops  # Pallas on TPU, XLA elsewhere
+from vil_fusion_tpu.ops.pallas import knn_pallas as knn_ops  # fused kernel on GPU, XLA elsewhere
 
 # minimum |cos| between the view ray and the 3-NN plane normal (~6 deg off
 # the surface plane); see the grazing-incidence gate below

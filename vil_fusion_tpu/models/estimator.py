@@ -245,7 +245,7 @@ def gauge_transform(window: WindowState, prior, R_d, t_d):
 
 # failure_detection bitmask layout (nonzero == failed); FAIL_NAMES decodes a
 # host-fetched mask into the predicate names for restart-cause reporting
-# (VERDICT r4 #3: every restart's cause must be recorded, not just counted)
+# (every restart's cause must be recorded, not just counted)
 FAIL_NAMES = {1: "acc_bias_norm", 2: "gyr_bias_norm", 4: "position_jump",
               8: "z_jump", 16: "rotation_jump"}
 
@@ -294,8 +294,8 @@ def fused_full_step(
     marginalize + slide — one XLA program.
 
     The host-orchestrated version dispatches ~10 kernels plus dozens of small
-    host<->device reads per frame; under any dispatch latency (remote TPU
-    especially) that dominates wall clock. This is the 'frame-synchronous
+    host<->device reads per frame; under dispatch latency that dominates
+    wall clock. This is the 'frame-synchronous
     pipeline of jitted stages' the SURVEY design calls for.
 
     Returns (window, feats, pre, lidar, prior, outputs dict).

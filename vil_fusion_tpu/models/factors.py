@@ -8,7 +8,7 @@ Rebuild of the reference's factor library (C8):
                           window frames, fixed sqrt-info)
   * marginalization prior — marginalization_factor.cpp:333-381 (linear replay)
 
-TPU-first design: every residual is a pure function of the window state; the
+Accelerator-first design: every residual is a pure function of the window state; the
 analytic Jacobians the reference hand-codes are produced by `jax.jacfwd` over
 the tangent retraction — tracing yields the same closed-form expressions,
 fused by XLA, with zero runtime autodiff cost. vmapped over factor batches.

@@ -13,7 +13,7 @@ import functools
 import jax
 import jax.numpy as jnp
 
-from vil_fusion_tpu.ops.pallas import knn_pallas as knn_ops  # Pallas on TPU, XLA elsewhere
+from vil_fusion_tpu.ops.pallas import knn_pallas as knn_ops  # fused kernel on GPU, XLA elsewhere
 from vil_fusion_tpu.ops import lie
 
 

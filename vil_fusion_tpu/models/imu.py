@@ -1,12 +1,12 @@
 """IMU preintegration (midpoint) with bias Jacobian + covariance propagation.
 
-TPU-native rebuild of the reference's `IntegrationBase`
+Rebuild of the reference's `IntegrationBase`
 (reference: src/visual_inertial_lidar/vins_estimator/factor/integration_base.h:9-209):
 `midPointIntegration` (:54-128) becomes one `lax.scan` step; `repropagate`
 (:130-145) is a re-run of the scan with new linearization biases (cheap under
 jit — the scan is compiled once); `evaluate` (:160-186) is `residual` below.
 
-Design notes (TPU-first):
+Design notes:
   * Fixed-capacity segments: steps are padded with dt == 0, which is exactly
     an identity update (F = I, V = 0), so no masks are needed.
   * The whole integrator is differentiable; the 15x15 first-order bias
@@ -142,8 +142,8 @@ def preintegrate(
     both paths are compiled once for the fixed capacity N and agree to f32
     rounding (test_imu.py::test_parallel_preintegration_matches_sequential).
 
-    The SEQUENTIAL path is the deployed default despite being ~2-4 ms/frame
-    slower on TPU: the associative composition's different f32 summation
+    The SEQUENTIAL path is the deployed default despite its longer serial
+    latency: the associative composition's different f32 summation
     order perturbs the 15x15 covariance at ~1e-4 relative, which the
     sqrt-information Cholesky amplifies on short low-noise segments into
     visibly different IMU factor weights — measured as 3 extra
@@ -180,7 +180,7 @@ def preintegrate_parallel(
     noise: ImuNoise = ImuNoise(),
 ) -> Preintegrated:
     """Log-depth preintegration: the SAME midpoint math as _midpoint_step,
-    restructured for the TPU's latency profile. A 63-step lax.scan is 63
+    restructured for an accelerator's latency profile. A 63-step lax.scan is 63
     serial dispatches of tiny 15x15 matmuls — pure latency. The recurrence
     decomposes into associative pieces:
 
@@ -314,7 +314,7 @@ def sqrt_information(pre: Preintegrated) -> jnp.ndarray:
 
     The reference uses LLT of cov^{-1} (imu_factor.h:55-60); we use the
     numerically-equivalent inverse Cholesky factor of a symmetrized,
-    eps-regularized covariance (f32-safe on TPU).
+    eps-regularized covariance (f32-safe).
     """
     dtype = pre.cov.dtype
     cov = 0.5 * (pre.cov + jnp.swapaxes(pre.cov, -1, -2))

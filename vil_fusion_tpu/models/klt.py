@@ -4,8 +4,8 @@ Rebuild of the reference tracker's core algorithms
 (feature_tracker.cpp: cv::calcOpticalFlowPyrLK(21x21, 3 levels) :151,
 rejectWithF (lift -> virtual pinhole -> FM_RANSAC, 1 px) :383-420).
 
-TPU-first: one vmapped LK solver over all features (each feature is a 2x2
-normal system per iteration — pure VPU work), fixed pyramid levels and
+Accelerator-first: one vmapped LK solver over all features (each feature is
+a 2x2 normal system per iteration — pure elementwise work), fixed pyramid levels and
 iteration counts; RANSAC as a fixed batch of hypotheses solved with batched
 eigh + argmax (no early exit — SURVEY.md §7 "RANSAC/PnP control flow").
 """
@@ -22,7 +22,7 @@ from vil_fusion_tpu.ops import image as im
 def _patch(img_padded, center, size: int, pad: int):
     """(size, size) bilinear patch centered at fractional `center` via ONE
     contiguous dynamic_slice + 4-tap mix. Per-pixel gather indexing lowers
-    to slow random gathers on TPU; a contiguous (size+1)^2 slice per feature
+    to slow random gathers; a contiguous (size+1)^2 slice per feature
     is the fast access pattern.
 
     `img_padded` is edge-padded by `pad` >= size//2 + 1 so slices never
@@ -149,10 +149,10 @@ def track_pyramidal(
         if lvl == levels - 1 or not region:
             # coarsest level: the initial displacement is unbounded, so the
             # current patch is re-gathered from the image every iteration.
-            # NOTE: a convergence-gated lax.while_loop was tried here and
-            # measured 70% SLOWER than the fixed fori_loop on TPU — the
-            # opaque loop defeats XLA's unrolling/pipelining of the patch
-            # gathers and adds a cross-feature cond reduction per round.
+            # NOTE: a fixed fori_loop, not a convergence-gated
+            # lax.while_loop: the opaque loop defeats XLA's unrolling and
+            # pipelining of the patch gathers and adds a cross-feature cond
+            # reduction per round.
             def track_one(p1, g):
                 t, gx, gy, w, gxx, gxy, gyy, inv, ok = _template(p1)
 
@@ -262,7 +262,7 @@ def ransac_fundamental(
     A = rows(n1, n2)  # (B, 8, 9)
     AtA = jnp.einsum("bri,brj->bij", A, A)
     # nullspace via Cholesky inverse iteration (batched 9x9 eigh lowers to a
-    # long QR chain on TPU; this is one factorization + 4 triangular solves)
+    # long QR chain; this is one factorization + 4 triangular solves)
     from vil_fusion_tpu.ops import linalg as fast_linalg
 
     f = fast_linalg.smallest_eigvec_inverse_iteration(AtA)

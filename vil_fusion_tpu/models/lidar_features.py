@@ -66,7 +66,7 @@ def project_range_image(points: jnp.ndarray, valid: jnp.ndarray, cfg: LidarConfi
     cell = jnp.where(valid, cell, cfg.n_scan * cfg.width)  # overflow bucket
 
     # nearest point per cell via scatter-min (a full argsort of ~115k points
-    # is a bitonic sort on TPU and dominated the extraction cost; two
+    # dominated the extraction cost; two
     # scatters + one gather do the same job)
     n_cells = cfg.n_scan * cfg.width
     img_r = jnp.full((n_cells + 1,), 1e9, points.dtype).at[cell].min(
@@ -156,7 +156,7 @@ def extract_features(points: jnp.ndarray, valid: jnp.ndarray, cfg: LidarConfig =
     flat_ok = surf_mask.reshape(-1)
     origin = jnp.full((3,), -200.0, points.dtype)
     # sort-free hash downsample: the exact (argsort-based) variant bitonic-
-    # sorts all ~115k cells and dominated extraction on TPU; one representative
+    # sorts all ~115k cells and dominated extraction; one representative
     # per hashed voxel is equivalent for surf candidate thinning (the maps are
     # maintained with the same hash scheme)
     surf, surf_valid = voxel_ops.voxel_downsample_hash(

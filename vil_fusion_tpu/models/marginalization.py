@@ -6,7 +6,7 @@ preMarginalize :37-173, 4-pthread Hessian assembly :232-261, Schur complement
 with eigendecomposition :267-297, prior replay :333-381) and `slideWindow`
 (estimator.cpp:1052-1177, removeBackShiftDepth feature_manager.cpp:292-339).
 
-TPU-first: the pthread map-reduce becomes the same batched scatter-add used by
+Accelerator-first: the pthread map-reduce becomes the same batched scatter-add used by
 ba.build_system; the Schur complement and the (J, r0) re-factorization are two
 eigendecompositions of small dense matrices — one fused jit, no threads.
 """

@@ -5,9 +5,9 @@ Rebuild of the reference's GTSAM back end
 + odometry BetweenFactors (1e-6/1e-4) + Cauchy-robust loop BetweenFactors,
 initNoises :123-139; iSAM2 incremental solve at 1 Hz, isamUpdate :349-374).
 
-TPU-first replacement for iSAM2: the graph is small (10^3-10^4 nodes), so a
-full batched Gauss-Newton relinearization each update is cheaper on the MXU
-than incremental Bayes-tree surgery. The normal equations are never
+Batched replacement for iSAM2: the graph is small (10^3-10^4 nodes), so a
+full batched Gauss-Newton relinearization each update is cheaper on the
+accelerator than incremental Bayes-tree surgery. The normal equations are never
 materialized: H·v is computed edge-wise (gather -> per-edge 12-dim matvec ->
 scatter-add), solved by preconditioned CG with a block-Jacobi (6x6 per node)
 preconditioner. Fixed capacities + masks throughout.

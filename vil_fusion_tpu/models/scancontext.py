@@ -7,10 +7,10 @@ ring key + nanoflann kd-tree rebuilt every 30 inserts :226-239,
 distanceBtnScanContext with +-10% circular shift search :162-193,
 detectLoopClosureID :210-298, SC_DIST_THRES = 0.2, 30-keyframe exclusion).
 
-TPU-first: the kd-tree over ring keys becomes a dense distance over the whole
+Accelerator-first: the kd-tree over ring keys becomes a dense distance over the whole
 database (a few thousand 20-vectors — one matmul); the shift search evaluates
-ALL 60 shifts of the query against ALL candidates in a single einsum on the
-MXU instead of the reference's per-candidate +-10% scan. Strictly more
+ALL 60 shifts of the query against ALL candidates in a single einsum
+instead of the reference's per-candidate +-10% scan. Strictly more
 thorough than the reference at lower cost.
 """
 from __future__ import annotations

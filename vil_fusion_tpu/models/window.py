@@ -11,7 +11,7 @@ non-landmark states into a single D-dim vector:
 
 Landmark inverse depths form a separate F-dim tangent handled by Schur
 complement (they couple to poses only through single-landmark factors, so
-H_ll is diagonal — the TPU-friendly equivalent of Ceres DENSE_SCHUR).
+H_ll is diagonal — the dense batched equivalent of Ceres DENSE_SCHUR).
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Image operations for the visual front end (pure jnp/lax, TPU-friendly).
+"""Image operations for the visual front end (pure jnp/lax).
 
 Replaces the OpenCV primitives the reference's tracker uses
 (feature_tracker.cpp: cv::calcOpticalFlowPyrLK :151, cv::goodFeaturesToTrack
@@ -40,10 +40,10 @@ def bilinear_sample(img: jnp.ndarray, xy: jnp.ndarray):
 
 
 # Image convs explicitly opt OUT of the package-wide float32 matmul
-# precision (vil_fusion_tpu/__init__.py): bf16-input convs quantize 0..1
-# pixel values at 2^-8 — below the sensor's own 1/255 quantization (the
-# reference runs on uint8 images) — and the forced-f32 lowering measured
-# 3x slower across the tracker's conv stack on v5e.
+# precision (vil_fusion_tpu/__init__.py): on the GPU they may run in TF32,
+# whose 10-bit mantissa resolves 0..1 pixel values finer than the sensor's
+# own 1/255 quantization (the reference runs on uint8 images). chip_smoke.py's
+# pipeline phase (tracked-feature count and ATE) covers this choice.
 _FAST = jax.lax.Precision.DEFAULT
 
 
@@ -54,11 +54,9 @@ def _conv2(img, kernel):
 
 
 # Shift-and-add in place of conv_general_dilated for the tiny fixed stencils:
-# a single-channel 2-D conv on TPU lowers through the convolution emitter
-# with no channel parallelism to amortize it — the 5-conv Shi-Tomasi stack
-# measured 7.6 ms of an 8.0 ms detect_features at KITTI size (v5e,
-# 2026-08-20); the same math as padded slices + fused VPU adds is ~100x less.
-# Zero padding matches the previous padding="SAME" semantics exactly.
+# a single-channel 2-D conv has no channel parallelism to amortize the
+# convolution emitter, while padded slices + fused adds are plain
+# elementwise work. Zero padding matches padding="SAME" semantics exactly.
 
 def sobel(img: jnp.ndarray):
     """(Ix, Iy) Sobel gradients, scaled 1/8 (derivative of intensity/px)."""
@@ -127,9 +125,9 @@ def clahe(img: jnp.ndarray, grid: int = 8, clip_limit: float = 3.0,
     between the 4 neighboring tiles per pixel, with intra-bin interpolation
     so float imagery is not quantized to `bins` levels.
 
-    TPU shape: the histogram is a one-hot matmul per tile (MXU), the LUTs
-    are a (grid*grid*bins,) table small enough that the 8 per-pixel gathers
-    hit VMEM. Input/output float [0, 1]."""
+    Dense shape: the histogram is a one-hot matmul per tile, the LUTs are a
+    (grid*grid*bins,) table small enough that the 8 per-pixel gathers stay
+    in cache. Input/output float [0, 1]."""
     H, W = img.shape
     th, tw = -(-H // grid), -(-W // grid)
     Hp, Wp = th * grid, tw * grid
@@ -235,9 +233,8 @@ def detect_features(
     # (except exact ties) — per-tile max is exact, and the global top_k
     # then runs over ~2k tile maxima instead of H*W pixels (a full-image
     # lax.top_k was ~8 ms of the tracker's budget at KITTI size). Two-stage
-    # reduction keeping the wide axis minor — a (H/T, W/T, T, T) transpose
-    # measured 3x worse than the original top_k on TPU (T=15 minor dims
-    # fight the 8x128 lane layout).
+    # reduction keeping the wide axis minor (a (H/T, W/T, T, T) transpose
+    # puts the T=15 dims minor).
     T = max(nms_r, 1)
     Hp = -(-H // T) * T
     Wp = -(-W // T) * T

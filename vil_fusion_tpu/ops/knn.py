@@ -1,13 +1,13 @@
-"""Tiled brute-force k-nearest-neighbour search on TPU.
+"""Tiled brute-force k-nearest-neighbour search (the XLA form).
 
 Replaces the reference's pointer-chasing kd-trees (PCL `KdTreeFLANN` in
 EstimationMapping.hpp:254-285 and feature_tracker_node.cpp:54-199, nanoflann in
-Scancontext.h) with an MXU-friendly formulation: squared distances are computed
-as one matmul per database tile (`|q|^2 + |d|^2 - 2 q·d^T`) and a running
-top-k is merged tile by tile, so the full (Nq, Nd) distance matrix is never
-materialized. No pointers, no recursion, static shapes — this is the idiomatic
-TPU replacement, and for the point counts involved (1e4-1e5) it is faster than
-a tree would be even on CPU-class hardware because it is pure dense math.
+Scancontext.h) with a dense formulation: squared distances are computed as one
+matmul per database tile (`|q|^2 + |d|^2 - 2 q·d^T`) and a running top-k is
+merged tile by tile, so the full (Nq, Nd) distance matrix is never
+materialized. No pointers, no recursion, static shapes. On the GPU the fused
+kernel in ops/pallas/knn_pallas.py replaces it; this form serves every other
+backend and is the kernel's reference.
 
 All inputs carry validity masks (fixed-capacity buffers); invalid database
 points get +inf distance and are never selected.
@@ -62,10 +62,10 @@ def knn(
         best_d, best_i = carry
         d_tile, v_tile, t = inp
         d_norm2 = jnp.sum(d_tile * d_tile, axis=-1)  # (tile,)
-        # MXU matmul with HIGHEST precision: TPU's default-bf16 matmul loses
-        # ~0.5 m^2 here (measured), which silently corrupts correspondences;
-        # HIGHEST (3-pass bf16) keeps the error < 2e-3 m^2 at 3.7x the speed
-        # of the exact elementwise-difference form.
+        # HIGHEST precision: the expanded form cancels |q|^2 + |d|^2 against
+        # 2 q.d, so a reduced-precision matmul (TF32 keeps ~3 decimal digits)
+        # would leave errors of ~1e-3 |q|^2 — metres^2 at map ranges, which
+        # silently corrupts correspondences.
         cross = jax.lax.dot_general(
             queries, d_tile.T, (((1,), (0,)), ((), ())),
             precision=jax.lax.Precision.HIGHEST)

@@ -1,6 +1,6 @@
 """Batched Lie-group / quaternion operations (SO(3), SE(3)).
 
-TPU-native replacement for the reference's Eigen-based math utilities
+Batched replacement for the reference's Eigen-based math utilities
 (reference: src/visual_inertial_lidar/vins_estimator/utility/utility.h:12-185,
 src/visual_inertial_lidar/feature_tracker/include/common.h:79-176,
 src/global_fusion/include/common.h). Everything here is a pure function,

@@ -1,9 +1,9 @@
-"""Small closed-form linear algebra for batched geometry (TPU-friendly).
+"""Small closed-form linear algebra for batched geometry.
 
-jnp.linalg.eigh on batched 3x3 matrices lowers to iterative QR on TPU; the
+jnp.linalg.eigh on batched 3x3 matrices lowers to iterative QR; the
 scan-matching hot path calls it for thousands of covariance matrices per
 frame. Closed forms (Cardano eigenvalues + cross-product eigenvectors) are
-branch-free VPU arithmetic.
+branch-free elementwise arithmetic.
 """
 from __future__ import annotations
 
@@ -45,8 +45,7 @@ def sym3x3_eigvalsh(A):
 def gram3(x):
     """(..., K, 3) -> (..., 3, 3) Gram matrix sum_k x_k x_k^T via explicit
     elementwise products (6 unique entries). einsum("nki,nkj->nij") lowers
-    to batched tiny dot_generals on TPU — measured a large fraction of the
-    lidar correspondence pass; this form is pure VPU."""
+    to batched tiny dot_generals; this form is pure elementwise work."""
     x0, x1, x2 = x[..., 0], x[..., 1], x[..., 2]
     g00 = jnp.sum(x0 * x0, axis=-1)
     g01 = jnp.sum(x0 * x1, axis=-1)
@@ -63,7 +62,7 @@ def gram3(x):
 def solve3x3(A, b):
     """Batched closed-form 3x3 solve by Cramer's rule (A (..., 3, 3),
     b (..., 3)). jnp.linalg.solve LU-factorizes thousands of tiny systems
-    through the TPU linalg library; the adjugate form is ~15 fused VPU ops.
+    through the linalg library; the adjugate form is ~15 fused elementwise ops.
     Singular A gives non-finite output — callers gate like they do for the
     library solve."""
     a00, a01, a02 = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
@@ -110,7 +109,7 @@ def smallest_eigvec_inverse_iteration(A, iters: int = 4, shift: float = 1e-6):
     """Smallest eigenvector of each symmetric PSD (..., n, n) by inverse
     iteration on one Cholesky factor (factor once, `iters` cheap triangular
     solves). Replaces batched jnp.linalg.eigh on small normal matrices —
-    eigh lowers to a long iterative QR chain on TPU, ~4x the cost.
+    eigh lowers to a long iterative QR chain.
 
     Assumes the smallest eigenvalue is well-separated (true for RANSAC
     nullspace problems; degenerate hypotheses produce garbage vectors that
@@ -168,7 +167,7 @@ def sym3x3_principal(A):
 def solve_spd_unrolled(A, b):
     """x = A^{-1} b for small SPD systems (n <= ~12, n static) via a fully
     UNROLLED scalar Cholesky + two triangular solves, batched over leading
-    dims. On TPU a 6x6 jnp.linalg.solve dispatches the general LU custom
+    dims. A 6x6 jnp.linalg.solve dispatches the general LU custom
     call (pivoting, blocked paths built for large matrices) — a latency-
     bound library detour inside tight GN loops (scan_to_map runs 8 solves
     per frame). The unrolled form is ~n^3/3 scalar fmas that XLA fuses

@@ -4,7 +4,7 @@ Replaces PCL `VoxelGrid`/`CropBox` (reference: EstimationMapping.hpp:246-251,
 326-351 and featureExtraction.hpp voxel use) with sort-based, static-shape
 kernels: quantize -> sort by voxel key -> segment-reduce centroids. Everything
 returns fixed-capacity buffers with validity masks, the framework-wide
-convention for dynamic cardinality on TPU (SURVEY.md §7 "hard parts").
+convention for dynamic cardinality under jit (SURVEY.md §7 "hard parts").
 """
 from __future__ import annotations
 

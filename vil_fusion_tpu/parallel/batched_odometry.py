@@ -4,10 +4,13 @@ The cleanest multi-chip scaling axis for a SLAM workload is embarrassingly
 parallel: S independent sequences (dataset evaluation sweeps, multi-robot
 fleets, parameter searches) with the sequence axis sharded over devices —
 each chip runs the full fused odometry step for its sequences, zero
-communication. jax.sharding places the batched step; XLA partitions it with
-no collectives.
+communication. shard_map runs the vmapped step on each device's local
+sequences, so custom kernels inside it (the GPU kNN) stay per-device
+instead of being left to XLA's partitioner.
 """
 from __future__ import annotations
+
+import functools
 
 import jax
 from jax.sharding import NamedSharding, PartitionSpec as P
@@ -29,4 +32,11 @@ def odometry_step_sharded(mesh, states: lo.MapState, points, valid,
     sh = NamedSharding(mesh, P(AXIS))
     points = jax.device_put(points, sh)
     valid = jax.device_put(valid, sh)
-    return lo.odometry_step_batched(states, points, valid, cfg)
+    return _sharded_step(mesh, cfg)(states, points, valid)
+
+
+@functools.lru_cache(maxsize=None)
+def _sharded_step(mesh, cfg: lo.OdomConfig):
+    return jax.jit(jax.shard_map(
+        lambda s, p, v: lo.odometry_step_batched(s, p, v, cfg),
+        mesh=mesh, in_specs=P(AXIS), out_specs=P(AXIS), check_vma=False))

@@ -1,7 +1,7 @@
 """Device-mesh helpers for multi-chip scaling.
 
 The reference scales by running 5 ROS processes on one machine (SURVEY.md
-§2.3); the TPU-native design scales by sharding the data-parallel axes of the
+§2.3); this design scales by sharding the data-parallel axes of the
 SLAM workload over a `jax.sharding.Mesh`:
 
   * landmark/factor blocks of the BA Hessian  -> psum reduction (sharded_ba)

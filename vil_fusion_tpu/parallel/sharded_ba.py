@@ -3,8 +3,8 @@
 The BA Hessian assembly is a map-reduce over factors (the reference does the
 same on 4 pthreads, marginalization_factor.cpp:232-261). Here each device
 assembles the normal-equation contribution of its landmark shard and the
-6-DoF-pose-state system is reduced with `psum` over ICI — the direct TPU
-analog, scaled from 4 threads to N chips.
+6-DoF-pose-state system is reduced with `psum` across devices — the direct
+analog, scaled from 4 threads to N devices.
 
 Landmark depths stay device-local (H_ll is diagonal and landmark-parallel:
 the Schur complement's per-landmark elimination never crosses shards), so the

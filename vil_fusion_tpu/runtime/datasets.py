@@ -238,7 +238,7 @@ def replay(pipeline, events: Iterator[tuple], max_events: Optional[int] = None,
     With `prefetch` (default), dataset decode runs in a producer thread and
     events arrive through the native ring bus (runtime/transport.py) so disk
     IO overlaps device compute — the reference's topic transport between its
-    four processes (launch/run_fusion.launch:13-36), TPU-native."""
+    four processes (launch/run_fusion.launch:13-36)."""
     if prefetch:
         from vil_fusion_tpu.runtime import transport
 

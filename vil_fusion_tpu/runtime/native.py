@@ -3,7 +3,7 @@
 Builds `libvilrt.so` on demand (make in vil_fusion_tpu/native). Every entry
 point has a pure-Python fallback so the framework stays usable without a
 toolchain; the native path is the production one (the reference's runtime is
-C++ throughout — this is its TPU-framework counterpart for the host side).
+C++ throughout — this is its counterpart for the host side).
 """
 from __future__ import annotations
 

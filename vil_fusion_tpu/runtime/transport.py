@@ -3,7 +3,7 @@
 The reference runs its four stages as separate ROS processes wired by topic
 transport (launch/run_fusion.launch:13-36; feature_tracker subscribes IMAGE_
 TOPIC, laserMapping subscribes /laser_cloud_*, vins_estimator subscribes
-/imu0 — all through roscore's pub/sub). The TPU-native counterpart keeps
+/imu0 — all through roscore's pub/sub). The counterpart here keeps
 compute in one process (one device queue) but moves sensor IO to a producer
 thread that decodes dataset files ahead of time and ships each event through
 the native lock-free SPSC ring (native/src/ringbus.cpp) — disk reads, PNG

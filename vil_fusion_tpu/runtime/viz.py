@@ -2,7 +2,7 @@
 
 The reference publishes 16 rviz topics (C17: odometry, paths, point clouds,
 key poses, camera-frustum markers, loop edges — visualization.cpp:25-39,
-CameraPoseVisualization). Headless TPU pods have no rviz; this module renders
+CameraPoseVisualization). Headless accelerator hosts have no rviz; this module renders
 the same artifacts to PNG with matplotlib (Agg):
 
   * plot_trajectories: N named trajectories, top-down + altitude profile
